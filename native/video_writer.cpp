@@ -2,7 +2,7 @@
 //
 // The reference writes its orbit videos as mp4 through imageio's ffmpeg
 // binary (/root/reference/mlx_nerf/entrypoints/__test_nerf.py:326-341).
-// Headless TPU hosts ship no ffmpeg, so this library provides a
+// Headless hosts often ship no ffmpeg, so this library provides a
 // dependency-free video path: a baseline JPEG encoder (ITU T.81 Annex K
 // tables, 4:4:4, quality-scaled quantization) packed into a RIFF/AVI
 // container with the MJPG fourcc — playable by VLC/ffplay/browsers.

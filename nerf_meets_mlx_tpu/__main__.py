@@ -1,8 +1,8 @@
 """CLI shell: ``python -m nerf_meets_mlx_tpu <command> [args]``.
 
 Counterpart of /root/reference/mlx_nerf/__main__.py:13-19 (which hardcodes
-one tyro entrypoint and needs a source edit to switch). Plain argparse —
-no extra deps on a TPU host.
+one tyro entrypoint and needs a source edit to switch). Plain argparse,
+no extra dependencies.
 """
 
 from __future__ import annotations
@@ -54,6 +54,9 @@ def main(argv=None):
     i.add_argument("--viewer-port", type=int, default=None, help="serve the live web viewer on this port")
 
     args = p.parse_args(argv)
+    from nerf_meets_mlx_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     if args.cmd == "train":
         from nerf_meets_mlx_tpu.entrypoints import train_nerf
 
@@ -101,6 +104,7 @@ def main(argv=None):
             viewer_port=args.viewer_port,
         )
     print(out)
+    return out
 
 
 if __name__ == "__main__":

@@ -9,14 +9,13 @@ AABB slab tightening (cameras/rays.intersect_aabb). This module adds the
 the marched interval — so the SAME static sample count concentrates on actual
 geometry, not just on the scene box.
 
-TPU design constraints (docs/DESIGN.md "Empty-space skipping"):
+Design constraints (docs/DESIGN.md "Empty-space skipping"):
 
-* No dynamic sample counts — XLA needs static shapes. Tightening re-scales
-  the sampling interval; it never changes array shapes.
-* Gathers are the expensive primitive on TPU (~9-11 ns/row serial HBM
-  access). The grid is probed ONCE per ray at `n_probes` fixed positions
-  (default 64 -> 4096*64 = 262k gathers ~= 1-2 ms/step), not per sample, and
-  the same tightened interval serves both the coarse and fine passes.
+* No dynamic sample counts — every array keeps a static shape. Tightening
+  re-scales the sampling interval; it never changes array shapes.
+* The grid is probed ONCE per ray at `n_probes` fixed positions (default
+  64 -> 4096*64 = 262k gathers per step), not per sample, and the same
+  tightened interval serves both the coarse and fine passes.
 * The grid update is a `lax.cond` branch inside the fused train step (one
   density forward over one jittered point per cell every `occ_update_every`
   steps) — no extra dispatch, no host round-trip.

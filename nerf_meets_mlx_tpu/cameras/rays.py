@@ -74,10 +74,10 @@ def get_rays_for_pixels(K, c2w, px, py):
 def intersect_aabb(rays_o, rays_d, box_min, box_max, near, far, eps: float = 1e-6):
     """Per-ray slab intersection with a scene AABB: tightened [near, far].
 
-    The TPU-friendly empty-space-skipping primitive: instead of pruning
+    The static-shape empty-space-skipping primitive: instead of pruning
     samples (dynamic shapes), the SAME static sample count is concentrated
-    into the segment of each ray that can contain geometry. Pure VPU math,
-    fuses into the train step. Rays that miss the box keep the original
+    into the segment of each ray that can contain geometry. Pure elementwise
+    math, fuses into the train step. Rays that miss the box keep the original
     [near, far] (they composite to background regardless).
 
     Args:

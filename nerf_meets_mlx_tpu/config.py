@@ -64,13 +64,8 @@ class EncodingConfig:
     hash_features_per_level: int = 2
     hash_log2_table_size: int = 19
     hash_init_scale: float = 1e-4
-    # GEMM operand dtype for the Pallas hash-encode fast path ("bfloat16"
-    # rounds the looked-up table values to bf16 — the precision regime
-    # INGP/tcnn train in; the XLA gather path always reads f32)
-    hash_compute_dtype: str = "float32"
-    # CP low-rank grid (TensoRF-style; encoding/cp_grid.py) — the TPU-native
-    # fast neural field: 1-D factor lines interpolated via hat-matrix GEMMs,
-    # zero gathers (the hash grid above is gather-bound on TPU)
+    # CP low-rank grid (TensoRF-style; encoding/cp_grid.py): 1-D factor
+    # lines interpolated via hat-matrix GEMMs
     cp_n_levels: int = 4
     cp_min_res: int = 64
     cp_max_res: int = 512
@@ -146,10 +141,9 @@ class RenderConfig:
     ray_chunk: int = 32768
     # scene AABB (xmin, ymin, zmin, xmax, ymax, zmax) for empty-space
     # skipping: per-ray slab intersection tightens [near, far] so the static
-    # sample budget concentrates where geometry can be — the TPU analog of
-    # occupancy-grid pruning (same quality at ~half the samples; dynamic
-    # sample counts would break XLA's static shapes). None = reference
-    # behavior (full [near, far] on every ray).
+    # sample budget concentrates where geometry can be (same quality at
+    # ~half the samples; the sample count per ray stays static). None =
+    # reference behavior (full [near, far] on every ray).
     aabb: Optional[Tuple[float, float, float, float, float, float]] = None
     # learned occupancy grid (acceleration/occupancy.py): density grid over
     # the AABB, EMA-updated from the fine network inside the train step,
@@ -243,7 +237,7 @@ class DataConfig:
 class ParallelConfig:
     """Device-mesh layout. Rays are sharded along ``data``; model/hash params
     are replicated (their grads psum over the mesh). The reference is
-    single-device (mlx_nerf/__main__.py:14) — this is the TPU-native upgrade."""
+    single-device (mlx_nerf/__main__.py:14)."""
 
     data_axis: str = "data"
     # if 0: use all visible devices
@@ -264,16 +258,6 @@ class ExperimentConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
-    # route point queries through the fused Pallas encode+MLP kernel
-    # (kernels/fused_mlp.py); requires sinusoidal pos+dir encodings and the
-    # viewdir head. Off-TPU the kernel runs in interpreter mode, so tests
-    # exercise identical code paths.
-    use_fused_kernel: bool = False
-    # when the fused kernel is on, additionally run TRAINING through the
-    # one-launch forward+composite+loss-grad+backward kernel
-    # (kernels/fused_train.py) — eliminates the duplicated forward of the
-    # value_and_grad path. Ignored when use_fused_kernel is False.
-    use_fused_train: bool = True
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -401,7 +385,6 @@ def config_from_text(path: str | Path, base: Optional[ExperimentConfig] = None) 
     hash_keys = {
         "hash_n_levels": int, "hash_min_res": int, "hash_max_res": int,
         "hash_features_per_level": int, "hash_log2_table_size": int,
-        "hash_compute_dtype": str,
     }
     hash_kv = {k: cast(kv[k]) for k, cast in hash_keys.items() if k in kv}
     if hash_kv:
@@ -533,11 +516,9 @@ def lego_full() -> ExperimentConfig:
 def lego_ingp() -> ExperimentConfig:
     """Config 5: Instant-NGP hash-encoding variant, 5k-iter fast run.
 
-    Sized from the r4 re-spec matrix (docs/results/ingp_respec.jsonl,
-    hard scene, 5k iters, 50 views): T = 2^14 measured quality-IDENTICAL
-    to 2^15 on this workload (26.33 vs 26.32 dB) at lower encode cost —
-    the one-hot-GEMM kernel's table scan is 2*T*F FLOPs per lookup, so
-    table size is a direct speed lever. 8 levels, 48+48 samples."""
+    Reduced from the paper's L=16 / T=2^19 / max_res 512: on the hard
+    scene (5k iters, 50 views) T = 2^14 measured the same test PSNR as
+    2^15 (26.33 vs 26.32 dB). 8 levels, 48+48 samples."""
     cfg = _nerf_base(n_samples=48, n_importance=48)
     return cfg.replace(
         pos_encoding=EncodingConfig(
@@ -558,11 +539,9 @@ def lego_ingp() -> ExperimentConfig:
 
 def lego_ingp_occ() -> ExperimentConfig:
     """lego_ingp plus the learned occupancy grid at a 32+32 sample budget —
-    the INGP paper's own recipe (hash encoding + occupancy culling). The r4
-    re-spec matrix measured 26.22 dB vs lego_ingp's 26.33 on the hard
-    scene (5k iters, 50 views) while marching ~35% fewer points; this is
-    the throughput-leaning hash preset (docs/results/ingp_respec.jsonl,
-    tag t14_bf16_occ32)."""
+    the INGP paper's own recipe (hash encoding + occupancy culling):
+    26.22 dB vs lego_ingp's 26.33 on the hard scene (5k iters, 50 views)
+    while marching ~35% fewer points."""
     cfg = lego_ingp()
     return cfg.replace(
         render=dataclasses.replace(
@@ -573,12 +552,11 @@ def lego_ingp_occ() -> ExperimentConfig:
 
 
 def lego_cp() -> ExperimentConfig:
-    """TPU-native fast-field variant: CP low-rank grid encoding (TensoRF-
-    style, encoding/cp_grid.py) + SH directions + small MLP, 5k-iter fast
-    run. Same capability class as Config 5's Instant-NGP (fast-converging
+    """Fast-field variant: CP low-rank grid encoding (TensoRF-style,
+    encoding/cp_grid.py) + SH directions + small MLP, 5k-iter fast run.
+    Same capability class as Config 5's Instant-NGP (fast-converging
     learned spatial encoding, small MLP) but built from hat-matrix GEMMs
-    instead of hash-table gathers — the design TPU hardware actually wants
-    (the hash path is gather-bound, docs/DESIGN.md "Hash-grid on TPU")."""
+    instead of hash-table gathers."""
     cfg = _nerf_base(
         n_samples=48, n_importance=48,
         aabb=(-1.5, -1.5, -1.5, 1.5, 1.5, 1.5),

@@ -143,7 +143,7 @@ def validate_dataset(ds: BlenderDataset, out_path: str | Path, n: int = 10) -> P
 
     Headless equivalent of the reference's validate_dataset
     (dataloader.py:113-129, which opens a matplotlib window)."""
-    import imageio.v2 as imageio
+    from nerf_meets_mlx_tpu.utils.video import write_png
 
     idx = ds.i_test[:n] if len(ds.i_test) else np.arange(min(n, len(ds.images)))
     cols = min(5, len(idx))
@@ -152,7 +152,4 @@ def validate_dataset(ds: BlenderDataset, out_path: str | Path, n: int = 10) -> P
     for k, i in enumerate(idx):
         r, c = divmod(k, cols)
         sheet[r * ds.H : (r + 1) * ds.H, c * ds.W : (c + 1) * ds.W] = ds.images[i]
-    out_path = Path(out_path)
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    imageio.imwrite(out_path, (np.clip(sheet, 0, 1) * 255).astype(np.uint8))
-    return out_path
+    return write_png(out_path, sheet)

@@ -53,7 +53,7 @@ class LLFFDataset:
 
 
 def _downsample_area(img: np.ndarray, factor: int) -> np.ndarray:
-    """Integer-factor box-filter downscale (the TPU build's minify — the
+    """Integer-factor box-filter downscale (this build's minify — the
     original LLFF pipeline shells out to imagemagick)."""
     H, W = img.shape[:2]
     Hc, Wc = H // factor * factor, W // factor * factor

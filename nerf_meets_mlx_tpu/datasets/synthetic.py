@@ -272,7 +272,7 @@ def write_blender_dataset(
 ) -> Path:
     """Write the analytic scene as an on-disk Blender dataset
     (transforms_*.json + RGBA PNGs) for exercising the file loader."""
-    import imageio.v2 as imageio
+    from nerf_meets_mlx_tpu.utils.video import write_png
 
     out_dir = Path(out_dir)
     H = W = resolution
@@ -286,9 +286,8 @@ def write_blender_dataset(
         frames = []
         for i, pose in enumerate(poses):
             rgba = render_gt_image(H, W, K, pose[:3, :4], scene=scene)
-            png = (np.clip(rgba, 0, 1) * 255).astype(np.uint8)
             rel = f"./{split}/r_{i}"
-            imageio.imwrite(out_dir / f"{rel}.png", png)
+            write_png(out_dir / f"{rel}.png", rgba)
             frames.append(
                 {"file_path": rel, "transform_matrix": pose.tolist()}
             )

@@ -62,7 +62,6 @@ def make_encoding(cfg: EncodingConfig) -> "Encoding":
             features_per_level=cfg.hash_features_per_level,
             log2_table_size=cfg.hash_log2_table_size,
             init_scale=cfg.hash_init_scale,
-            compute_dtype=cfg.hash_compute_dtype,
         )
     if cfg.kind == "cp_grid":
         from nerf_meets_mlx_tpu.encoding.cp_grid import CPGridEncoding

@@ -1,16 +1,11 @@
-"""CP-decomposed low-rank grid encoding (TensoRF-style) — the TPU-native
-fast neural field.
+"""CP-decomposed low-rank grid encoding (TensoRF-style).
 
 The Instant-NGP hash grid (encoding/hash_grid.py, reference WIP at
 /root/reference/mlx_nerf/encoding/multi_hash.py) is built around random
-table access — the one primitive TPUs lack: XLA lowers every gather flavor
-to ~9-11 ns/row serial HBM access (measured, docs/DESIGN.md "Hash-grid on
-TPU"), so the hash path is gather-bound by two orders of magnitude.
-
-This encoding delivers the same capability class (a fast-converging learned
-spatial encoding in front of a small MLP) with ZERO gathers. A CP (CANDECOMP/
-PARAFAC) factorization of the feature volume [Chen et al. 2022, TensoRF]
-stores three 1-D factor lines per level:
+table access. This encoding delivers the same capability class (a
+fast-converging learned spatial encoding in front of a small MLP) with no
+gathers. A CP (CANDECOMP/PARAFAC) factorization of the feature volume
+[Chen et al. 2022, TensoRF] stores three 1-D factor lines per level:
 
     feat_c(x, y, z) = line_x[x, c] * line_y[y, c] * line_z[z, c]
 
@@ -21,14 +16,13 @@ at floor/floor+1), so
 
     interp(line, t) = W @ line        # [N, R] @ [R, C] -> [N, C]
 
-which is MXU work instead of N row-gathers. The backward is two more GEMMs
-(dW -> dt via the hat derivative; dline = W^T @ dout — the scatter-add into
-the grid becomes a transposed matmul). XLA fuses the hat construction into
-elementwise ops; everything lands on the MXU/VPU at full tile occupancy.
+which is matrix-unit work instead of N row-gathers. The backward is two more
+GEMMs (dW -> dt via the hat derivative; dline = W^T @ dout — the scatter-add
+into the grid becomes a transposed matmul). XLA fuses the hat construction
+into elementwise ops.
 
-Cost model vs hash: one level costs 2*R*C FLOPs/point/axis. At R=512, C=16,
-3 axes that is ~100 KFLOP/point — ~1 ms per million points on one v5e chip —
-versus ~0.8 s per million points for 8-corner x 16-level hash gathers.
+Cost: one level costs 2*R*C FLOPs/point/axis — at R=512, C=16, 3 axes that
+is ~100 KFLOP/point.
 
 Multi-resolution: L levels with geometric resolutions (like the hash grid's
 Eq. 2-3) concatenate their per-level features -> out_dim = L * C.
@@ -58,7 +52,7 @@ class CPGridEncoding:
     bbox_min: float = -1.5
     bbox_max: float = 1.5
     # GEMM compute dtype for the hat-matrix interpolation. bf16 halves the
-    # [N, R] operand's HBM traffic; factors accumulate in f32.
+    # [N, R] operand's memory traffic; factors accumulate in f32.
     compute_dtype: str = "bfloat16"
 
     @property

@@ -1,6 +1,6 @@
 """Instant-NGP multiresolution hash-grid encoding (Müller et al. 2022).
 
-TPU-native redesign of the reference's WIP MultiHashEncoding
+Redesign of the reference's WIP MultiHashEncoding
 (/root/reference/mlx_nerf/encoding/multi_hash.py:13-137). The reference is
 broken as written — it calls a Python *list* of nn.Embeddings as a function
 (multi_hash.py:112-119) and uses ceil/floor corners that degenerate when the
@@ -13,8 +13,7 @@ scaled coordinate is integral (SURVEY.md §2.9). This implementation:
   PRIME1=1 "for cache coherence", 2654435761, 805459861) but reduces with a
   power-of-two bitmask instead of ``%``,
 * computes the 8-corner trilinear interpolation as one batched gather +
-  weighted sum — XLA turns the backward into a scatter-add into the tables
-  (the segment-sum formulation a TPU wants; no atomics).
+  weighted sum — XLA turns the backward into a scatter-add into the tables.
 
 Geometric level growth b = exp((ln N_max - ln N_min)/(L-1)) and per-level
 resolutions N_l = floor(N_min * b**l) follow Eq. (2-3) of the paper
@@ -53,9 +52,6 @@ class HashGridEncoding:
     # world-space bounding box mapped to the unit cube before hashing
     bbox_min: float = -1.5
     bbox_max: float = 1.5
-    # GEMM operand dtype for the Pallas kernel fast path (this XLA apply()
-    # always reads tables in f32); "bfloat16" = the INGP/tcnn half regime
-    compute_dtype: str = "float32"
 
     @property
     def out_dim(self) -> int:
@@ -101,7 +97,7 @@ class HashGridEncoding:
         # Static loop over the 8 corners (bit c = (bz, by, bx)). Keeping the
         # corner axis OUT of the arrays bounds peak memory at [N, L(,F)]
         # buffers — the naive [N, L, 8, 3] weight cube materializes ~19 GB
-        # at the fine batch (786k pts x 16 levels) and OOMs HBM.
+        # at the fine batch (786k pts x 16 levels) and exhausts device memory.
         fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]  # [N, L]
         feats = jnp.zeros(
             (x.shape[0], self.n_levels, self.features_per_level), jnp.float32

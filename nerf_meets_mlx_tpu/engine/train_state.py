@@ -12,9 +12,9 @@ lr(step) = lrate * 0.1 ** (step / (lrate_decay * 1000)), continuous decay.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
@@ -22,7 +22,8 @@ import optax
 from nerf_meets_mlx_tpu.config import TrainConfig
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     step: jnp.ndarray          # int32 scalar
     params: Any
@@ -31,6 +32,9 @@ class TrainState:
     # non-optimized state, EMA-updated inside the train step; None when
     # render.occupancy is off
     occ_grid: Any = None
+
+    def replace(self, **kw) -> "TrainState":
+        return dataclasses.replace(self, **kw)
 
 
 def lr_schedule(cfg: TrainConfig):

@@ -1,7 +1,7 @@
 """2-D image-learning entrypoint.
 
 Counterpart of /root/reference/mlx_nerf/entrypoints/__viser_image_learning.py
-without the viser GUI dependency (headless TPU hosts): trains the MLP to
+without the viser GUI dependency (headless hosts): trains the MLP to
 reproduce an RGB image, periodically writing predicted frames + a final
 training-progress video. The reference's live viser loop is optional
 (see tools/viewer.py for the interactive path).
@@ -23,7 +23,8 @@ from nerf_meets_mlx_tpu.datasets.image import pixel_dataset
 from nerf_meets_mlx_tpu.engine import Trainer, make_image_train_step
 from nerf_meets_mlx_tpu.models import create_nerf
 from nerf_meets_mlx_tpu.ops import psnr as psnr_fn
-from nerf_meets_mlx_tpu.utils.video import to8b, write_video
+from nerf_meets_mlx_tpu.utils.logging import log_devices
+from nerf_meets_mlx_tpu.utils.video import to8b, write_png, write_video
 
 
 def image_learning(
@@ -39,13 +40,9 @@ def image_learning(
     With viewer_port set, serves the live GUI (GT/prediction images,
     metrics, pause/resume) — the reference's viser loop
     (__viser_image_learning.py:238-315) without the viser dependency."""
+    log_devices("image")
     cfg = image2d()
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, max_iters=max_iters))
-    # The fused image kernel (kernels/fused_image.py) measured SLOWER than
-    # XLA at this workload's 2500-pixel batches (1078 vs 1221 steps/s on
-    # v5e-1 — DESIGN.md "fused image-learning train kernel: measured, NOT
-    # wired"), so the XLA value_and_grad path stays the default everywhere;
-    # the kernel remains available via use_fused_kernel for larger batches.
     img = load_image_2d(image_path, size)
     H, W = img.shape[:2]
     coords, colors = pixel_dataset(img)
@@ -85,11 +82,6 @@ def image_learning(
     final_psnr = float(psnr_fn(pred, jnp.asarray(img)))
     trainer.logger.log(step=trainer.step, final_psnr=final_psnr)
     out_dir = Path(trainer.log_dir)
-    try:
-        import imageio.v2 as imageio
-
-        imageio.imwrite(out_dir / "final.png", to8b(pred))
-    except Exception:
-        pass
-    write_video(out_dir / "progress.mp4", frames, fps=10)
-    return {"final_psnr": final_psnr, "steps": trainer.step}
+    write_png(out_dir / "final.png", pred)
+    video = write_video(out_dir / "progress.avi", frames, fps=10)
+    return {"final_psnr": final_psnr, "steps": trainer.step, "video": str(video)}

@@ -23,7 +23,8 @@ from nerf_meets_mlx_tpu.entrypoints.train_nerf import _load_dataset
 from nerf_meets_mlx_tpu.models import create_nerf
 from nerf_meets_mlx_tpu.ops import psnr as psnr_fn, ssim as ssim_fn
 from nerf_meets_mlx_tpu.rendering import render_image, render_orbit
-from nerf_meets_mlx_tpu.utils.video import to8b, write_video
+from nerf_meets_mlx_tpu.utils.logging import log_devices
+from nerf_meets_mlx_tpu.utils.video import write_png, write_video
 
 
 def render_only(
@@ -41,6 +42,7 @@ def render_only(
     render_test=True renders + scores the held-out test views (PSNR);
     otherwise writes the orbit video.
     """
+    log_devices("render")
     cfg = PRESETS[preset]()
     if dv_shape is not None:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, dv_shape=dv_shape))
@@ -75,14 +77,12 @@ def render_only(
     template = create_train_state(
         model.init(jax.random.PRNGKey(0)), cfg.train, occ_grid=occ
     )
-    state = restore_checkpoint(ckpt_dir, template, step)
+    state = jax.device_put(restore_checkpoint(ckpt_dir, template, step))
     out_path = Path(out_dir or (Path(log_dir) / f"render_only_{step}"))
     out_path.mkdir(parents=True, exist_ok=True)
 
     result: dict = {"step": step}
     if render_test:
-        import imageio.v2 as imageio
-
         psnrs, ssims = [], []
         for i in ds.i_test:
             out = render_image(
@@ -92,7 +92,7 @@ def render_only(
             gt = jnp.asarray(ds.images[i])
             psnrs.append(float(psnr_fn(out["rgb_map"], gt)))
             ssims.append(float(ssim_fn(out["rgb_map"], gt)))
-            imageio.imwrite(out_path / f"test_{i:03d}.png", to8b(out["rgb_map"]))
+            write_png(out_path / f"test_{i:03d}.png", out["rgb_map"])
         result["test_psnr_mean"] = float(np.mean(psnrs))
         result["test_ssim_mean"] = float(np.mean(ssims))
         result["test_psnrs"] = psnrs
@@ -101,6 +101,6 @@ def render_only(
         frames = render_orbit(
             model, state.params, ds.H, ds.W, ds.K, poses, occ_grid=state.occ_grid
         )
-        path = write_video(out_path / "orbit.mp4", frames, fps=30)
+        path = write_video(out_path / "orbit.avi", frames, fps=30)
         result["video"] = str(path)
     return result

@@ -22,7 +22,8 @@ from nerf_meets_mlx_tpu.models import create_nerf
 from nerf_meets_mlx_tpu.ops import psnr as psnr_fn
 from nerf_meets_mlx_tpu.parallel.distributed import init_distributed, is_main_process
 from nerf_meets_mlx_tpu.rendering import render_image, render_orbit
-from nerf_meets_mlx_tpu.utils.video import to8b, write_video
+from nerf_meets_mlx_tpu.utils.logging import log_devices
+from nerf_meets_mlx_tpu.utils.video import write_png, write_video
 
 
 def _load_dataset(cfg: ExperimentConfig):
@@ -78,12 +79,13 @@ def train_nerf(
 
     nan_check enables jax_debug_nans (the framework's sanitizer mode —
     SURVEY §5); profile_dir captures a jax.profiler device trace of steps
-    ~10-20 for TensorBoard. With >1 visible device (a pod slice, or the
+    ~10-20 for TensorBoard. With >1 visible device (several cards, or the
     multi-host path after jax.distributed.initialize) the train step runs
     sharded automatically; shard=False forces single-device."""
-    # multi-host: no-op single-process; on pods every host calls this first
-    # so make_mesh() below spans all processes (parallel/distributed.py)
+    # multi-host: no-op single-process; otherwise every host calls this
+    # first so make_mesh() below spans all processes (parallel/distributed.py)
     init_distributed()
+    log_devices("train")
     if nan_check:
         jax.config.update("jax_debug_nans", True)
     cfg = PRESETS[preset]()
@@ -130,18 +132,6 @@ def train_nerf(
             train=dataclasses.replace(cfg.train, precrop_iters=precrop_iters)
         )
 
-    # route the hot path through the fused Pallas kernel on real TPUs
-    # (off-TPU it would run in the slow interpreter; keep the XLA path there)
-    if jax.default_backend() == "tpu" and (
-        (
-            cfg.pos_encoding.kind == "sinusoidal"
-            and cfg.dir_encoding is not None
-            and cfg.dir_encoding.kind == "sinusoidal"
-        )
-        or cfg.pos_encoding.kind == "hash_grid"  # Pallas hash-encode kernel
-    ):
-        cfg = cfg.replace(use_fused_kernel=True)
-
     ds = _load_dataset(cfg)
     # non-NDC real captures: sampling bounds come from the capture (LLFF
     # depth bounds / DeepVoxels hemisphere radius), not the config (NDC
@@ -151,10 +141,10 @@ def train_nerf(
             render=dataclasses.replace(cfg.render, near=ds.near, far=ds.far)
         )
     model = create_nerf(cfg)
-    images = jax.device_put(jnp.asarray(ds.images[ds.i_train]))
-    poses = jax.device_put(jnp.asarray(ds.poses[ds.i_train, :3, :4]))
+    images = np.asarray(ds.images[ds.i_train])
+    poses = np.asarray(ds.poses[ds.i_train, :3, :4])
 
-    # multi-chip / multi-host: when >1 device is visible the step runs
+    # multi-device / multi-host: when >1 device is visible the step runs
     # sharded over the data mesh (rays DP, params replicated, grad pmean)
     # with the SAME semantics as the single-device step (shard-invariant
     # RNG, tests/test_parallel.py). --no-shard forces single-device.
@@ -163,8 +153,14 @@ def train_nerf(
     if shard and n_dev > 1 and cfg.train.n_rand % n_dev == 0:
         from nerf_meets_mlx_tpu.parallel import make_mesh, make_sharded_nerf_train_step
 
+        from nerf_meets_mlx_tpu.parallel import replicated
+
         mesh = make_mesh(cfg.parallel.n_devices)
         step_fn = make_sharded_nerf_train_step(model, ds.H, ds.W, ds.focal, mesh)
+        # replicated on every device of the mesh: left on one device, the
+        # whole image set would be copied to the others on every step
+        images = jax.device_put(images, replicated(mesh))
+        poses = jax.device_put(poses, replicated(mesh))
         print(f"[train] sharded over {mesh.devices.size} devices", flush=True)
         if inner > 1:
             print(
@@ -173,20 +169,21 @@ def train_nerf(
             )
     else:
         # inner > 1 batches steps in a lax.scan so one dispatch advances
-        # several optimizer steps — wins when per-execution dispatch
-        # latency (e.g. a tunneled chip) leaves the device idle between
-        # steps; neutral when the async queue already hides it. Cadences
-        # (logging, checkpoint, eval) then quantize to `inner`.
+        # several optimizer steps — for when per-execution dispatch latency
+        # leaves the device idle between steps. Cadences (logging,
+        # checkpoint, eval) then quantize to `inner`.
         step_fn = make_nerf_train_step(
             model, ds.H, ds.W, ds.focal, n_inner=max(1, inner)
         )
+        images, poses = jax.device_put(images), jax.device_put(poses)
     trainer = Trainer(
         cfg, model, step_fn, (images, poses), log_dir=log_dir,
         steps_per_call=(1 if mesh is not None else max(1, inner)),
         mesh=mesh, main_process=is_main_process(),
     )
-    if resume:
-        trainer.restore()
+    start_step = trainer.restore() if resume else 0
+    if start_step:
+        print(f"[train] resumed from step {start_step}", flush=True)
 
     out_dir = trainer.log_dir
     tcfg = cfg.train
@@ -234,7 +231,7 @@ def train_nerf(
         print(f"[viewer] http://localhost:{viewer.port}")
 
     # resuming a finished run skips the loop entirely — keep `metrics` bound
-    metrics: dict = {"step": trainer.step}
+    metrics: dict = {}
     while trainer.step < tcfg.max_iters:
         chunk = tcfg.i_img if viewer else (tcfg.i_testset or tcfg.max_iters)
         n = min(chunk, tcfg.max_iters - trainer.step)
@@ -260,15 +257,8 @@ def train_nerf(
             )
             test_psnr = float(psnr_fn(out["rgb_map"], jnp.asarray(ds.images[test_i])))
             trainer.logger.log(step=trainer.step, test_psnr=test_psnr)
-            try:
-                if is_main_process():
-                    import imageio.v2 as imageio
-
-                    imageio.imwrite(
-                        out_dir / f"render_{trainer.step:08d}.png", to8b(out["rgb_map"])
-                    )
-            except Exception:
-                pass
+            if is_main_process():
+                write_png(out_dir / f"render_{trainer.step:08d}.png", out["rgb_map"])
 
     trainer.save()
     if viewer is not None:
@@ -289,6 +279,8 @@ def train_nerf(
         ssims.append(float(ssim_fn(out["rgb_map"], gt)))
     result = {
         **metrics,
+        "start_step": start_step,
+        "step": trainer.step,
         "test_psnr_mean": float(np.mean(psnrs)),
         "test_ssim_mean": float(np.mean(ssims)),
     }
@@ -303,5 +295,7 @@ def train_nerf(
             model, trainer.state.params, ds.H, ds.W, ds.K, ds.render_poses,
             occ_grid=trainer.state.occ_grid,
         )
-        write_video(out_dir / f"orbit_{trainer.step}.mp4", frames, fps=30)
+        result["video"] = str(
+            write_video(out_dir / f"orbit_{trainer.step}.avi", frames, fps=30)
+        )
     return result

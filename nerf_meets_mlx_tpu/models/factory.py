@@ -76,42 +76,6 @@ class NeRFModel:
 
     # -- point query --------------------------------------------------------
 
-    def _use_fused(self, mlp_cfg) -> bool:
-        cfg = self.cfg
-        return (
-            cfg.use_fused_kernel
-            and mlp_cfg.use_viewdirs
-            and cfg.pos_encoding.kind == "sinusoidal"
-            and cfg.dir_encoding is not None
-            and cfg.dir_encoding.kind == "sinusoidal"
-        )
-
-    def _use_hash_kernel(self) -> bool:
-        """Route the hash-grid encode through the Pallas one-hot-GEMM kernel
-        (kernels/hash_encode.py) when the packed tables fit VMEM. The MLP
-        after it stays on XLA (2x64 for the ingp preset — not the
-        bottleneck; the gather was)."""
-        cfg = self.cfg
-        if not (cfg.use_fused_kernel and cfg.pos_encoding.kind == "hash_grid"):
-            return False
-        from nerf_meets_mlx_tpu.kernels.hash_encode import HashEncodeSpec
-
-        return HashEncodeSpec.from_encoding(self.pos_enc).vmem_ok
-
-    def _encode_pos(self, params: Params, pts: jnp.ndarray) -> jnp.ndarray:
-        # positions are data or stop-gradient z-samples here -> no dX in
-        # either fused-encode path
-        if self._use_hash_kernel():
-            from nerf_meets_mlx_tpu.kernels.hash_encode import hash_encode_apply
-
-            return hash_encode_apply(self.pos_enc, params["pos_enc"], pts)
-        # NOTE: kernels/cp_encode.py exists but measured SLOWER than the XLA
-        # CP path on v5e (fwd 8.5 vs 5.5 ms, grad 19.8 vs 7.7 ms at the fine
-        # batch): its per-(level, block) [*, R]@[R, C=16] GEMMs use 1/8 of
-        # the MXU lanes, while XLA runs one big well-packed GEMM. The XLA
-        # path stays the lego_cp hot path (docs/DESIGN.md).
-        return self.pos_enc.apply(params["pos_enc"], pts)
-
     def query(
         self,
         params: Params,
@@ -126,27 +90,7 @@ class NeRFModel:
         mlp_cfg = self.cfg.mlp if level == "coarse" else (self.cfg.mlp_fine or self.cfg.mlp)
         mlp_params = params[level] if level in params else params["coarse"]
 
-        if self._use_fused(mlp_cfg):
-            from nerf_meets_mlx_tpu.kernels.fused_mlp import (
-                FusedMLPSpec,
-                fused_apply,
-                pack_inputs,
-                pack_params,
-            )
-
-            # compute_dx=False: pts/viewdirs are always data here (rays are
-            # the batch; importance z-samples are stop-gradient), so the
-            # backward kernel skips the whole dL/dX path.
-            spec = FusedMLPSpec.from_configs(
-                mlp_cfg, self.cfg.pos_encoding, self.cfg.dir_encoding,
-                compute_dx=False,
-            )
-            x = pack_inputs(pts, viewdirs)
-            packed = pack_params(spec, mlp_params)
-            raw = fused_apply(spec, packed, x)
-            return raw[:, :4].reshape(*pts.shape[:-1], 4)
-
-        x_pos = self._encode_pos(params, pts)
+        x_pos = self.pos_enc.apply(params["pos_enc"], pts)
         x_dir = None
         if mlp_cfg.use_viewdirs and self.dir_enc is not None:
             dirs = jnp.broadcast_to(
@@ -168,8 +112,8 @@ class NeRFModel:
         shard_info=None,
     ) -> jnp.ndarray:
         """[near, far] tightening (AABB slab + learned occupancy) and the
-        stratified coarse z samples — the parameter-free front of both the
-        standard and fused-train render paths."""
+        stratified coarse z samples — the parameter-free front of the
+        render path."""
         rcfg = self.cfg.render
         B = rays_o.shape[0]
         near = jnp.full((B, 1), rcfg.near, dtype=jnp.float32)
@@ -231,7 +175,6 @@ class NeRFModel:
         overwrite semantics at render.py:237-239) plus coarse z_vals/weights.
         """
         rcfg = self.cfg.render
-        B = rays_o.shape[0]
         if viewdirs is None:
             viewdirs = rays_d / jnp.linalg.norm(rays_d, axis=-1, keepdims=True)
 
@@ -242,18 +185,6 @@ class NeRFModel:
         z_vals = self._coarse_z(
             rays_o, rays_d, k_jitter, train, occ_grid, occ_active, shard_info
         )
-
-        if not train and self._fused_train_mode in ("sinusoidal", "ingp"):
-            # dense eval fast path: forward+composite in one Pallas launch
-            # per level (fused_train._eval_kernel / the forward-only INGP
-            # kernel) — the point-major padded pipeline (pack_inputs →
-            # fused_apply → XLA raw2outputs, or hash_encode → XLA MLP) moved
-            # every intermediate through HBM lane-padded. Eval has no noise
-            # and no gradient, so only rgb + dense weights leave the chip;
-            # depth/disp/acc are XLA reductions (volume.maps_from_weights).
-            return self._render_rays_eval_fused(
-                params, rays_o, rays_d, viewdirs, z_vals, k_imp
-            )
 
         def draw_noise(k, shape):
             if not (train and rcfg.raw_noise_std > 0.0):
@@ -324,425 +255,6 @@ class NeRFModel:
                 acc_map=out_f["acc_map"],
                 depth_map=out_f["depth_map"],
             )
-
-        return ret
-
-    def _render_rays_eval_fused(
-        self,
-        params: Params,
-        rays_o: jnp.ndarray,     # [B, 3]
-        rays_d: jnp.ndarray,     # [B, 3]
-        viewdirs: jnp.ndarray,   # [B, 3] normalized (pre-NDC)
-        z_vals: jnp.ndarray,     # [B, S] coarse depths
-        k_imp: jax.Array,
-    ) -> Dict[str, jnp.ndarray]:
-        """Eval-mode hierarchical render through the forward-only fused
-        kernel (kernels/fused_train._eval_kernel): per level one launch runs
-        point construction + encode + MLP + ray-major compositing with dense
-        IO. Same outputs/keys as the standard eval path; parity gated in
-        tests/test_fused_train.py. The importance stage is deterministic
-        (midpoint inverse-CDF), matching render_rays(train=False)."""
-        from nerf_meets_mlx_tpu.kernels.fused_mlp import (
-            FusedMLPSpec,
-            pack_params,
-        )
-        from nerf_meets_mlx_tpu.kernels.fused_train import (
-            TrainSpec,
-            eval_block,
-            fused_eval_apply,
-        )
-        from nerf_meets_mlx_tpu.rendering.volume import maps_from_weights
-
-        rcfg = self.cfg.render
-        B = rays_o.shape[0]
-        dnorm = jnp.linalg.norm(rays_d, axis=-1, keepdims=True)
-
-        def deltas_of(z):
-            d = jnp.concatenate(
-                [z[:, 1:] - z[:, :-1], jnp.full_like(z[:, :1], 1e10)], axis=-1
-            )
-            return d * dnorm
-
-        def tspec_of(n_samples, rb, grp):
-            return TrainSpec(
-                n_samples=n_samples,
-                rays_block=rb,
-                n_rays=B,
-                mode=rcfg.compositing,
-                density_activation=rcfg.density_activation,
-                white_bkgd=rcfg.white_bkgd,
-                group=grp,
-            )
-
-        if self._fused_train_mode == "ingp":
-            from nerf_meets_mlx_tpu.kernels.fused_feat_train import (
-                FeatMLPSpec,
-                pack_feat_params,
-            )
-            from nerf_meets_mlx_tpu.kernels.fused_ingp_train import (
-                fused_ingp_eval_apply,
-            )
-            from nerf_meets_mlx_tpu.kernels.fused_train import (
-                default_group,
-                default_rays_block,
-            )
-            from nerf_meets_mlx_tpu.kernels.hash_encode import (
-                HashEncodeSpec,
-                pack_tables,
-            )
-
-            sh = self.dir_enc.apply(params["dir_enc"], viewdirs)
-            hspec = HashEncodeSpec.from_encoding(self.pos_enc)
-            g = pack_tables(hspec, params["pos_enc"]["tables"])
-
-            def run_level(level, z, n_samples):
-                mlp_cfg = self.cfg.mlp if level == "coarse" else (
-                    self.cfg.mlp_fine or self.cfg.mlp
-                )
-                mlp_params = (
-                    params[level] if level in params else params["coarse"]
-                )
-                fspec = FeatMLPSpec.from_configs(
-                    mlp_cfg, self.pos_enc.out_dim, self.dir_enc.out_dim
-                )
-                # same known-safe sub-block shape as the train kernel (the
-                # Mosaic stack cap binds the unrolled encode body, which the
-                # eval kernel shares)
-                rb = default_rays_block(n_samples, target_points=768)
-                grp = default_group(n_samples, rb, target_points=8192)
-                return fused_ingp_eval_apply(
-                    fspec, hspec, tspec_of(n_samples, rb, grp),
-                    pack_feat_params(fspec, mlp_params), g,
-                    rays_o, rays_d, sh, z, deltas_of(z),
-                )
-        else:
-
-            def run_level(level, z, n_samples):
-                mlp_cfg = self.cfg.mlp if level == "coarse" else (
-                    self.cfg.mlp_fine or self.cfg.mlp
-                )
-                mlp_params = (
-                    params[level] if level in params else params["coarse"]
-                )
-                spec = FusedMLPSpec.from_configs(
-                    mlp_cfg, self.cfg.pos_encoding, self.cfg.dir_encoding,
-                    compute_dx=False,
-                )
-                rb, grp = eval_block(n_samples)
-                return fused_eval_apply(
-                    spec, tspec_of(n_samples, rb, grp),
-                    pack_params(spec, mlp_params),
-                    rays_o, rays_d, viewdirs, z, deltas_of(z),
-                )
-
-        rgb_c, w_c = run_level("coarse", z_vals, rcfg.n_samples)
-        depth_c, acc_c, disp_c = maps_from_weights(w_c, z_vals)
-        ret = {
-            "rgb_coarse": rgb_c,
-            "disp_coarse": disp_c,
-            "acc_coarse": acc_c,
-            "depth_coarse": depth_c,
-            "z_vals": z_vals,
-            "weights": w_c,
-            "rgb_map": rgb_c,
-            "disp_map": disp_c,
-            "acc_map": acc_c,
-            "depth_map": depth_c,
-        }
-
-        if rcfg.n_importance > 0:
-            z_imp = sample_pdf(
-                k_imp, z_vals, w_c, rcfg.n_importance, deterministic=True
-            )
-            z_all = merge_z(z_vals, z_imp)
-            level = "fine" if "fine" in params else "coarse"
-            rgb_f, w_f = run_level(
-                level, z_all, rcfg.n_samples + rcfg.n_importance
-            )
-            depth_f, acc_f, disp_f = maps_from_weights(w_f, z_all)
-            ret.update(
-                rgb_fine=rgb_f,
-                disp_fine=disp_f,
-                acc_fine=acc_f,
-                depth_fine=depth_f,
-                rgb_map=rgb_f,
-                disp_map=disp_f,
-                acc_map=acc_f,
-                depth_map=depth_f,
-            )
-
-        return ret
-
-    # -- fused train path (one kernel launch per level) ----------------------
-
-    @property
-    def _fused_train_mode(self) -> Optional[str]:
-        """Which one-launch train kernel covers this config:
-
-        * "sinusoidal" — kernels/fused_train.py (encode+MLP+composite+loss
-          grad+backward; D=8/W=256-class sinusoidal presets);
-        * "ingp" — kernels/fused_ingp_train.py (hash-grid presets whose
-          packed tables fit VMEM: in-kernel points + hash encode + small
-          MLP + compositing + backward incl. the table scatter-add, ONE
-          launch per level — nothing intermediate touches HBM);
-        * "feats" — kernels/fused_feat_train.py (small MLP over precomputed
-          hash/CP features + SH dirs, emitting dL/dfeats for the encoding's
-          own backward; the CP-grid path, and hash configs too big for
-          VMEM-resident tables);
-        * None — unfused XLA path.
-        """
-        cfg = self.cfg
-        if not (cfg.use_fused_kernel and cfg.use_fused_train):
-            return None
-        n_total = cfg.render.n_samples + cfg.render.n_importance
-        fine_mlp = cfg.mlp_fine or cfg.mlp
-        if self._use_fused(cfg.mlp) and (
-            cfg.render.n_importance == 0 or self._use_fused(fine_mlp)
-        ):
-            from nerf_meets_mlx_tpu.kernels.fused_train import max_fused_samples
-
-            # VMEM guard: the in-kernel [RBS, RBS] compositing-scan matrix
-            # grows as n_samples^2 once rays_block clamps to 1; past the
-            # bound the program falls back to the unfused XLA path instead
-            # of failing at compile time with a VMEM-OOM.
-            if n_total <= max_fused_samples():
-                return "sinusoidal"
-            return None
-        if (
-            cfg.pos_encoding.kind == "hash_grid"
-            and cfg.dir_encoding is not None
-            and cfg.dir_encoding.kind == "spherical_harmonics"
-            and cfg.mlp.use_viewdirs
-            and fine_mlp.use_viewdirs
-            and n_total <= 2048
-        ):
-            if n_total <= 256:
-                from nerf_meets_mlx_tpu.kernels.hash_encode import (
-                    HashEncodeSpec,
-                )
-
-                # fully-fused path needs the packed tables VMEM-resident
-                # and the v3 rays_block>=8 sample bound
-                if HashEncodeSpec.from_encoding(self.pos_enc).vmem_ok:
-                    return "ingp"
-            return "feats"
-        # cp_grid: measured NEGATIVE (r5) — the feat-train kernel ran
-        # lego_cp at 123k rays/s vs 312k on the plain XLA path. The CP
-        # encode is one big well-fused XLA GEMM pipeline; forcing its
-        # features through the kernel's custom-call boundary adds ~600 MB
-        # of lane-padded [N, C] input/dfeats DMA per step and breaks XLA's
-        # fusion around the encode. Hash grids keep the feats route only
-        # because their alternative (the serial gather) is 80x worse.
-        return None
-
-    @property
-    def supports_fused_train(self) -> bool:
-        """True when training can run through a one-launch
-        forward+composite+loss-grad+backward kernel (see _fused_train_mode)."""
-        return self._fused_train_mode is not None
-
-    def render_rays_train(
-        self,
-        params: Params,
-        rays_o: jnp.ndarray,     # [B, 3]
-        rays_d: jnp.ndarray,     # [B, 3] (unnormalized)
-        target: jnp.ndarray,     # [B, 3]
-        key: jax.Array,
-        viewdirs: Optional[jnp.ndarray] = None,
-        occ_grid: Optional[jnp.ndarray] = None,
-        occ_active=True,
-        shard_info=None,  # (n_global, offset) under the shard_map step
-    ) -> Dict[str, jnp.ndarray]:
-        """Train-mode hierarchical render through the fused train kernel.
-
-        Per level, ONE Pallas launch runs encode+MLP forward, the
-        transmittance scan and color composite, the closed-form MSE
-        cotangent 2·(rgb−target), and the full backward — no duplicated
-        forward (the value_and_grad path pays the forward twice: once for
-        the loss, once as the backward kernel's recompute).
-
-        Returns {"sse_coarse", "rgb_coarse", "z_vals", "weights"
-        [, "sse_fine", "rgb_fine"]}. Differentiable ONLY through sse_*
-        (loss = (sse_coarse + sse_fine) / target.size); the maps/weights are
-        stop-gradient, matching the reference's detached sampler
-        (@torch.no_grad, sampling/__init__.py:101).
-        """
-        from nerf_meets_mlx_tpu.kernels.fused_train import TrainSpec
-
-        mode = self._fused_train_mode
-        rcfg = self.cfg.render
-        B = rays_o.shape[0]
-        if viewdirs is None:
-            viewdirs = rays_d / jnp.linalg.norm(rays_d, axis=-1, keepdims=True)
-        k_jitter, k_noise_c, k_imp, k_noise_f = jax.random.split(key, 4)
-
-        z_vals = self._coarse_z(
-            rays_o, rays_d, k_jitter, True, occ_grid, occ_active, shard_info
-        )
-        dnorm = jnp.linalg.norm(rays_d, axis=-1, keepdims=True)  # [B, 1]
-
-        def deltas_noise(z, k_noise):
-            # per-point delta (1e10 terminal, scaled by ||rays_d|| —
-            # render.py:46-59) and pre-scaled density noise
-            deltas = jnp.concatenate(
-                [z[:, 1:] - z[:, :-1], jnp.full_like(z[:, :1], 1e10)], axis=-1
-            ) * dnorm
-            if rcfg.raw_noise_std > 0.0:
-                noise = (
-                    _shard_rand(jax.random.normal, k_noise, z.shape, shard_info)
-                    * rcfg.raw_noise_std
-                )
-            else:
-                noise = jnp.zeros_like(z)
-            return deltas, noise
-
-        def tspec_for(n_samples: int, rays_block: int) -> TrainSpec:
-            return TrainSpec(
-                n_samples=n_samples,
-                rays_block=rays_block,
-                n_rays=B,
-                mode=rcfg.compositing,
-                density_activation=rcfg.density_activation,
-                white_bkgd=rcfg.white_bkgd,
-            )
-
-        if mode == "sinusoidal":
-            from nerf_meets_mlx_tpu.kernels.fused_mlp import (
-                FusedMLPSpec,
-                pack_params,
-            )
-            import dataclasses as _dc
-
-            from nerf_meets_mlx_tpu.kernels.fused_train import (
-                default_group,
-                default_rays_block,
-                fused_train_apply,
-            )
-
-            def run_level(level, z, k_noise, n_samples):
-                mlp_cfg = self.cfg.mlp if level == "coarse" else (
-                    self.cfg.mlp_fine or self.cfg.mlp
-                )
-                spec = FusedMLPSpec.from_configs(
-                    mlp_cfg, self.cfg.pos_encoding, self.cfg.dir_encoding,
-                    compute_dx=False,
-                )
-                # v3 ray-major dense IO: no point-major [B*S, 8] packing —
-                # the kernel reconstructs pts = o + z·d internally
-                deltas, noise = deltas_noise(z, k_noise)
-                rb = default_rays_block(n_samples)
-                tspec = _dc.replace(
-                    tspec_for(n_samples, rb),
-                    group=default_group(n_samples, rb),
-                )
-                return fused_train_apply(
-                    spec, tspec, pack_params(spec, params[level]),
-                    rays_o, rays_d, viewdirs, z, deltas, noise, target,
-                )
-        elif mode == "ingp":
-            # fully-fused: points + hash encode + MLP + compositing +
-            # backward (dW and the table scatter-add dG) in one launch per
-            # level; tables ride VMEM-resident (kernels/fused_ingp_train.py)
-            import dataclasses as _dc
-
-            from nerf_meets_mlx_tpu.kernels.fused_feat_train import (
-                FeatMLPSpec,
-                pack_feat_params,
-            )
-            from nerf_meets_mlx_tpu.kernels.fused_ingp_train import (
-                fused_ingp_train_apply,
-            )
-            from nerf_meets_mlx_tpu.kernels.fused_train import (
-                default_group,
-                default_rays_block,
-            )
-            from nerf_meets_mlx_tpu.kernels.hash_encode import (
-                HashEncodeSpec,
-                pack_tables,
-            )
-
-            sh = self.dir_enc.apply(params["dir_enc"], viewdirs)  # [B, d_dim]
-            hspec = HashEncodeSpec.from_encoding(self.pos_enc)
-            g = pack_tables(hspec, params["pos_enc"]["tables"])
-
-            def run_level(level, z, k_noise, n_samples):
-                mlp_cfg = self.cfg.mlp if level == "coarse" else (
-                    self.cfg.mlp_fine or self.cfg.mlp
-                )
-                fspec = FeatMLPSpec.from_configs(
-                    mlp_cfg, self.pos_enc.out_dim, self.dir_enc.out_dim
-                )
-                deltas, noise = deltas_noise(z, k_noise)
-                # ~768-point sub-blocks (the largest that compile under
-                # the flat 110 MB scoped-VMEM cap — Mosaic stack-allocates
-                # the combined body's unrolled per-level temporaries;
-                # RBS=1536 OOMs). Swept r5: coarse 768-pt blocks beat
-                # 384-pt by ~4% (31.7 vs 33.1 ms); fine floors at RB=8.
-                rb = default_rays_block(n_samples, target_points=768)
-                tspec = _dc.replace(
-                    tspec_for(n_samples, rb),
-                    group=default_group(n_samples, rb, target_points=8192),
-                )
-                return fused_ingp_train_apply(
-                    fspec, hspec, tspec,
-                    pack_feat_params(fspec, params[level]), g,
-                    rays_o, rays_d, sh, z, deltas, noise, target,
-                )
-        else:  # "feats": hash/CP features + SH dirs + small MLP
-            from nerf_meets_mlx_tpu.kernels.fused_feat_train import (
-                FeatMLPSpec,
-                feat_rays_block,
-                fused_feat_train_apply,
-                pack_feat_inputs,
-                pack_feat_params,
-            )
-
-            sh = self.dir_enc.apply(params["dir_enc"], viewdirs)  # [B, d_dim]
-
-            def run_level(level, z, k_noise, n_samples):
-                mlp_cfg = self.cfg.mlp if level == "coarse" else (
-                    self.cfg.mlp_fine or self.cfg.mlp
-                )
-                spec = FeatMLPSpec.from_configs(
-                    mlp_cfg, self.pos_enc.out_dim, self.dir_enc.out_dim
-                )
-                pts = rays_o[..., None, :] + z[..., :, None] * rays_d[..., None, :]
-                # differentiable encode (Pallas hash kernel or XLA CP path);
-                # the train kernel's dfeats cotangent chains into its VJP
-                feats = self._encode_pos(params, pts)  # [B, S, P]
-                deltas, noise = deltas_noise(z, k_noise)
-                x = pack_feat_inputs(feats, sh, deltas, noise)
-                return fused_feat_train_apply(
-                    spec,
-                    tspec_for(n_samples, feat_rays_block(n_samples)),
-                    pack_feat_params(spec, params[level]),
-                    x,
-                    target,
-                )
-
-        sse_c, rgb_c, weights = run_level(
-            "coarse", z_vals, k_noise_c, rcfg.n_samples
-        )
-        rgb_c = jax.lax.stop_gradient(rgb_c)
-        weights = jax.lax.stop_gradient(weights)
-        ret = {
-            "sse_coarse": sse_c,
-            "rgb_coarse": rgb_c,
-            "z_vals": z_vals,
-            "weights": weights,
-        }
-
-        if rcfg.n_importance > 0:
-            z_imp = sample_pdf(
-                k_imp, z_vals, weights, rcfg.n_importance, deterministic=False,
-                shard_info=shard_info,
-            )
-            z_all = merge_z(z_vals, z_imp)
-            level = "fine" if "fine" in params else "coarse"
-            sse_f, rgb_f, _ = run_level(
-                level, z_all, k_noise_f, rcfg.n_samples + rcfg.n_importance
-            )
-            ret.update(sse_fine=sse_f, rgb_fine=jax.lax.stop_gradient(rgb_f))
 
         return ret
 

@@ -16,11 +16,10 @@ Faithful to the reference, NO activation is applied to rgb or alpha at the
 model output — activation policy lives in the compositor
 (rendering/volume.py), selected by RenderConfig.compositing.
 
-TPU notes: apply() flattens leading dims into one big [N, C] matmul chain so
-every layer is a single MXU-shaped GEMM; an optional bfloat16 compute path
-casts weights+activations for the matmuls and accumulates in float32
-(preferred_element_type) — at W=256 these matmuls tile exactly onto the
-128x128 MXU.
+apply() flattens leading dims into one big [N, C] matmul chain so every
+layer is a single GEMM; an optional bfloat16 compute path casts
+weights+activations for the matmuls and accumulates in float32
+(preferred_element_type).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ mlx ``nn.Conv2d`` as a function and the body ends at a TODO —
 /root/reference/mlx_nerf/ops/metric.py:20-64) plus an LPIPS wrapper around
 the torch ``lpips`` package (metric.py:66-76). Here MSE/PSNR match the
 reference formulas (metric.py:12-18) and SSIM is implemented properly
-(Wang et al. 2004, 11x11 Gaussian window) with depthwise convolutions that
-XLA maps onto the MXU. LPIPS (a learned torch metric) is exposed via
+(Wang et al. 2004, 11x11 Gaussian window) with depthwise convolutions.
+LPIPS (a learned torch metric) is exposed via
 ``lpips_torch`` only if the optional package is importable.
 """
 
@@ -72,9 +72,9 @@ def ssim(
         padding="VALID",
         feature_group_count=C,
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        # full f32 precision: TPU convs default to bf16 multiplies, whose
-        # error on conv(x^2) - mu^2 dwarfs c2 (~9e-4) and pushes SSIM past
-        # 1 (observed 1.62 on a real render before this was pinned)
+        # full f32 precision: reduced-precision conv multiplies (bf16, or
+        # TF32 on GPUs) have an error on conv(x^2) - mu^2 that dwarfs c2
+        # (~9e-4) and can push SSIM past 1
         precision=jax.lax.Precision.HIGHEST,
     )
 

@@ -1,4 +1,4 @@
-"""Multi-host (pod) initialization.
+"""Multi-host initialization.
 
 The reference has no distributed layer (SURVEY.md §2 checklist). Here the
 multi-host story is deliberately thin because the single-controller JAX
@@ -7,8 +7,8 @@ model does the heavy lifting:
 1. every host calls ``init_distributed()`` (jax.distributed.initialize —
    coordinator discovery via env or explicit args),
 2. ``make_mesh()`` then spans ALL processes' devices; the same
-   ``make_sharded_nerf_train_step`` runs unchanged — rays shard globally,
-   gradient all-reduce rides ICI within hosts and DCN across,
+   ``make_sharded_nerf_train_step`` runs unchanged — rays shard globally
+   and the gradient all-reduce spans every device,
 3. host-local input loading: each process feeds only its addressable shard
    of the ray batch (``host_local_batch``),
 4. ``is_main_process()`` gates logging/checkpoint writes.
@@ -26,22 +26,18 @@ import jax
 _COORD_ENV_VARS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    # GKE / megascale TPU pods (jax cluster plugin auto-detect)
-    "MEGASCALE_COORDINATOR_ADDRESS",
     "JAX_NUM_PROCESSES",
     "JAX_PROCESS_ID",
 )
 
 # env vars that carry a PROCESS COUNT under cluster schedulers whose jax
-# cluster plugins auto-discover the coordinator (SLURM, Open MPI, Cloud TPU
-# pods). Presence alone is not enough — e.g. SLURM sets SLURM_NTASKS=1 for a
+# cluster plugins auto-discover the coordinator (SLURM, Open MPI). Presence
+# alone is not enough — e.g. SLURM sets SLURM_NTASKS=1 for a
 # plain salloc shell — so these only count when they parse to > 1.
 _PROC_COUNT_ENV_VARS = (
     "SLURM_NTASKS",          # jax SlurmCluster
     "SLURM_JOB_NUM_NODES",
     "OMPI_COMM_WORLD_SIZE",  # jax OmpiCluster
-    "MEGASCALE_NUM_SLICES",  # multi-slice TPU
-    "TPU_WORKER_HOSTNAMES",  # Cloud TPU pod: comma-separated host list
 )
 
 
@@ -51,10 +47,6 @@ def _multiprocess_configured() -> bool:
     for v in _PROC_COUNT_ENV_VARS:
         raw = os.environ.get(v, "")
         if not raw:
-            continue
-        if v == "TPU_WORKER_HOSTNAMES":
-            if len([h for h in raw.split(",") if h.strip()]) > 1:
-                return True
             continue
         try:
             if int(raw) > 1:
@@ -70,8 +62,8 @@ def init_distributed(
     process_id: Optional[int] = None,
 ) -> None:
     """Initialize multi-host JAX. No-op when running single-process or when
-    already initialized. On TPU pods with standard env (GCE metadata /
-    megascale env vars) all args auto-discover.
+    already initialized. Under a cluster scheduler jax knows (SLURM, Open
+    MPI) all args auto-discover; elsewhere pass them explicitly.
 
     Failure policy: if a multi-process run IS configured (explicit args or
     coordinator env vars) and initialization fails, this RAISES — degrading

@@ -2,17 +2,15 @@
 
 The reference is strictly single-device (mx.set_default_device(mx.gpu),
 /root/reference/mlx_nerf/__main__.py:14; no distributed code anywhere —
-SURVEY.md §2 parallelism checklist). The TPU-native scaling story:
+SURVEY.md §2 parallelism checklist). The scaling story:
 
-* ONE mesh axis, ``data``: rays are embarrassingly parallel, so the ray
-  batch shards across all chips (ICI within a host, DCN across hosts) while
-  MLP weights and hash tables replicate. Gradients of replicated params from
-  sharded rays force an all-reduce, which XLA GSPMD inserts and overlaps
-  with the backward pass.
+* ONE flat mesh axis, ``data``: rays are embarrassingly parallel, so the ray
+  batch shards across all devices while MLP weights and hash tables
+  replicate, and the gradients of the replicated params all-reduce.
 * The per-ray depth axis (64/192 samples — the workload's "sequence") never
-  leaves a chip: the compositing scan is local, so no ring/Ulysses-style
+  leaves a device: the compositing scan is local, so no ring/Ulysses-style
   exchange exists. Tensor/pipeline parallelism are deliberate non-goals: a
-  W=256 MLP fits per-chip thousands of times over.
+  W=256 MLP fits on one device many times over.
 
 Multi-host: call `jax.distributed.initialize()` before `make_mesh()`; the
 mesh then spans all processes' devices and the same code runs unchanged.

@@ -1,18 +1,15 @@
-"""Multi-chip eval rendering: pixels shard over the mesh's ``data`` axis.
+"""Multi-device eval rendering: pixels shard over the mesh's ``data`` axis.
 
 Completes the parallel story for evaluation (training shards in
 sharded_train.py): a full frame's rays are generated on-device, split into
 contiguous per-device pixel shards with `shard_map`, and each device sweeps
 its shard in ``lax.map`` chunks for memory — params stay replicated, no
 collectives are needed until the (tiny) output gather at the shard_map
-boundary. shard_map (rather than GSPMD sharding constraints) keeps the
-fused Pallas forward kernel device-local: GSPMD has no partitioning rule
-for pallas_call and would replicate it across the mesh.
+boundary.
 
 The reference has no distributed layer at all (its eval loop is a host-side
 python chunk loop, /root/reference/mlx_nerf/rendering/render.py:243-266);
-this is the TPU-native upgrade for rendering test sets / orbit videos on a
-pod in 1/N the wall clock.
+this renders test sets / orbit videos across N devices.
 """
 
 from __future__ import annotations
@@ -36,7 +33,7 @@ def make_sharded_render_image(
 ) -> Callable:
     """Build render(params, H, W, K, c2w) -> dict of [H, W, ...] maps,
     sharded over `mesh`. The chunk is the GLOBAL rays-per-sweep-step
-    (each chip processes chunk / n_devices of it)."""
+    (each device processes chunk / n_devices of it)."""
     cfg = model.cfg
     n_dev = mesh.devices.size
     axis = mesh.axis_names[0]

@@ -1,18 +1,10 @@
-"""Multi-chip data-parallel training step (shard_map).
+"""Multi-device data-parallel training step (shard_map).
 
 Rays shard over the mesh's ``data`` axis; params/optimizer state replicate.
-The per-device body is the SAME loss as the single-chip path
-(engine/trainer.py nerf_loss_fn, including the fused train kernel when
-enabled) wrapped in `shard_map`: each device runs its local rays through its
-local kernels and the gradient all-reduce is one explicit `pmean` over ICI,
-which XLA overlaps with the backward pass.
-
-Why shard_map rather than GSPMD sharding constraints: the hot path is a
-Pallas kernel (kernels/fused_mlp.py / fused_train.py), and GSPMD has no
-partitioning rule for pallas_call — on a real multi-chip mesh it would
-replicate the kernel (every chip computing the FULL batch) instead of
-partitioning it. shard_map makes the per-device extent explicit, so the
-kernel only ever sees its local shard.
+The per-device body is the SAME loss as the single-device path
+(engine/trainer.py nerf_loss_fn) wrapped in `shard_map`: each device runs
+its local rays and the gradient all-reduce is one explicit `pmean`, which
+XLA overlaps with the backward pass.
 
 RNG is shard-invariant: every random draw inside the step happens at the
 GLOBAL batch shape with the shared key, and each device slices its shard
@@ -20,13 +12,10 @@ GLOBAL batch shape with the shared key, and each device slices its shard
 consume identical random streams, and `sharded step == single-device step`
 holds to float tolerance (tests/test_parallel.py). Cost: each device
 generates the full batch's random bits redundantly (~1M threefry lanes per
-step) — negligible at pod-slice scale and bounded by n_rand, not by device
-count times n_rand.
+step), bounded by n_rand, not by device count times n_rand.
 
 This replaces nothing in the reference (it has no distributed layer at all,
-SURVEY.md §2 checklist); it is the framework's scaling path per BASELINE.md
-(≥90% rays/s efficiency 1 host -> N hosts, weak scaling by growing n_rand
-with chip count).
+SURVEY.md §2 checklist).
 """
 
 from __future__ import annotations
@@ -73,7 +62,6 @@ def make_sharded_nerf_train_step(
     if n_rand % n_dev:
         raise ValueError(f"global ray batch {n_rand} not divisible by {n_dev} devices")
     local_b = n_rand // n_dev
-    fused_train = model.supports_fused_train
     axis = mesh.axis_names[0]
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], np.float32)
 
@@ -90,7 +78,6 @@ def make_sharded_nerf_train_step(
                 viewdirs=viewdirs if cfg.render.ndc else None,
                 occ_grid=occ if has_occ else None,
                 occ_active=occ_active,
-                fused_train=fused_train,
                 shard_info=shard_info,
             )
 

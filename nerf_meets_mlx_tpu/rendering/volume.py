@@ -23,7 +23,7 @@ Both share: delta-dists with a 1e10 terminal bin scaled by ||rays_d||
 composites with white-background completion rgb += (1 - acc)
 (render.py:83-92).
 
-The per-ray sample axis stays on-chip: the exclusive scan is a cumsum along
+The per-ray sample axis stays on one device: the exclusive scan is a cumsum along
 the last axis, which XLA fuses with the surrounding elementwise ops — this is
 the "sequence scan" of the workload (SURVEY.md §5 long-context note).
 """

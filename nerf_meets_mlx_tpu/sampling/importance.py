@@ -3,8 +3,8 @@
 The reference routes this through a torch-CPU round-trip every iteration
 (device→numpy→torch.searchsorted→numpy→device; sampling/__init__.py:101-178,
 render.py:214-223, __test_nerf.py:274-285) because mlx lacked searchsorted.
-On TPU this is a pure jnp stage under stop_gradient: the coarse weights feed
-a per-ray CDF, and a batched sort-based searchsorted runs on-chip — no host
+Here it is a pure jnp stage under stop_gradient: the coarse weights feed a
+per-ray CDF, and a batched searchsorted runs on the device — no host
 boundary, and it fuses into the same jit train step as the coarse forward.
 
 Semantics reproduce the torch variant exactly (the one the reference actually
@@ -92,15 +92,15 @@ def sample_pdf(
         u = jax.lax.stop_gradient(jnp.asarray(u))
 
     # Right-searchsorted + the four index gathers, reformulated gather-free
-    # (per-row dynamic gathers are slow on TPU): with
+    # as masked reductions: with
     #   C[b, j, k] = (cdf[b, j] <= u[b, k])
     # the torch-variant's below/above lookups become masked reductions over
     # the sorted cdf / midpoint arrays:
     #   x[below] = max_j { x[j] : C }   (C[0] always holds: cdf[0] = 0)
     #   x[above] = min_j { x[j] : !C }, falling back to x[n] when all hold
     # — exactly clip(inds-1, 0, n) / clip(inds, 0, n) indexing for
-    # non-decreasing x. Everything is VPU-friendly broadcast work that XLA
-    # fuses into one pass over the [B, n+1, n_imp] cube.
+    # non-decreasing x. Everything is broadcast work that XLA fuses into one
+    # pass over the [B, n+1, n_imp] cube.
     C = cdf[:, :, None] <= u[:, None, :]  # [B, n+1, n_imp]
 
     # endpoint-padded bin midpoints: [m0, m0..m_{n-2}, m_{n-2}] -> [B, n+1]

@@ -4,7 +4,7 @@ Capability-equivalent of the reference's viser GUI
 (/root/reference/mlx_nerf/entrypoints/__viser_image_learning.py:59-124:
 themed page, Learning checkbox, iteration slider, live GT/prediction
 images), rebuilt without the viser dependency (not available on headless
-TPU hosts): a background-thread `http.server` serves an HTML page that
+hosts): a background-thread `http.server` serves an HTML page that
 polls PNG frames and scalar state, plus a pause/resume toggle the train
 loop reads.
 
@@ -19,13 +19,13 @@ Usage:
 from __future__ import annotations
 
 import json
-import struct
 import threading
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Tuple
 
 import numpy as np
+
+from nerf_meets_mlx_tpu.utils.video import encode_png, to_u8_rgb
 
 _PAGE = """<!doctype html>
 <html><head><title>nerf_meets_mlx_tpu</title><style>
@@ -49,38 +49,6 @@ setInterval(() => {
   });
 }, 500);
 </script></body></html>"""
-
-
-def _to_u8_rgb(img: np.ndarray) -> np.ndarray:
-    """float [0,1] (or u8) image, [H,W] / [H,W,1] / [H,W,3] -> u8 [H,W,3]."""
-    arr = np.asarray(img)
-    if arr.dtype != np.uint8:
-        arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
-    if arr.ndim == 2:
-        arr = arr[..., None]
-    if arr.shape[-1] == 1:
-        arr = np.repeat(arr, 3, axis=-1)
-    return arr
-
-
-def _encode_png(img: np.ndarray) -> bytes:
-    """Minimal RGB PNG encoder (stdlib zlib only — no imageio/PIL needed in
-    the serving thread)."""
-    arr = _to_u8_rgb(img)
-    h, w = arr.shape[:2]
-    raw = b"".join(b"\x00" + arr[i].tobytes() for i in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        c = struct.pack(">I", len(data)) + tag + data
-        return c + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", ihdr)
-        + chunk(b"IDAT", zlib.compress(raw, 6))
-        + chunk(b"IEND", b"")
-    )
 
 
 class LiveViewer:
@@ -154,7 +122,7 @@ class LiveViewer:
         # prefer the native JPEG encoder (native/video_writer.cpp) — ~10x
         # faster than the stdlib-zlib PNG path on full frames; PNG fallback
         # keeps the viewer dependency-free when the toolchain is absent
-        arr = _to_u8_rgb(img)
+        arr = to_u8_rgb(img)
         entry = None
         try:
             from nerf_meets_mlx_tpu.utils import native_video
@@ -165,7 +133,7 @@ class LiveViewer:
         except Exception:
             entry = None
         if entry is None:
-            entry = (_encode_png(arr), "image/png")
+            entry = (encode_png(arr), "image/png")
         with self._lock:
             self._frames[name] = entry
 

@@ -13,6 +13,8 @@ import sys
 import time
 from pathlib import Path
 
+import jax
+
 
 class MetricsLogger:
     def __init__(self, path: str | Path, echo: bool = True, enabled: bool = True):
@@ -34,3 +36,13 @@ class MetricsLogger:
                 for k, v in metrics.items()
             ]
             print("[train] " + " ".join(parts), file=sys.stderr)
+
+
+def log_devices(tag: str) -> None:
+    """Print the first device and the device count, so every run's log says
+    what it ran on."""
+    devs = jax.devices()
+    print(
+        f"[{tag}] device {devs[0]} ({devs[0].device_kind}), count {len(devs)}",
+        flush=True,
+    )

@@ -1,11 +1,11 @@
 """ctypes binding for the native MJPEG-AVI video writer (native/video_writer.cpp).
 
-Headless TPU hosts ship no ffmpeg, so imageio cannot write the orbit mp4 the
-reference produces (/root/reference/mlx_nerf/entrypoints/__test_nerf.py:326-341).
-This binding provides a dependency-free real-video path: baseline JPEG frames
-(encoded across hardware threads in C++) in a RIFF/AVI container with the
-MJPG fourcc. Falls back transparently (returns None) if the toolchain or
-library is unavailable — utils/video.py then degrades to GIF/PNG output.
+The reference writes its orbit mp4 through imageio's ffmpeg binary
+(/root/reference/mlx_nerf/entrypoints/__test_nerf.py:326-341). This binding
+provides a dependency-free video path: baseline JPEG frames (encoded across
+hardware threads in C++) in a RIFF/AVI container with the MJPG fourcc.
+Returns None if the toolchain or library is unavailable — utils/video.py
+then writes PNG frames.
 """
 
 from __future__ import annotations

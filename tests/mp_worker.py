@@ -5,10 +5,11 @@ Runs REAL jax.distributed.initialize (CPU backend, gloo collectives,
 ACTUAL Trainer — no emulation (r4 verdict weak #5):
 
   phase A: Trainer.run(4 sharded steps over the global mesh) + Trainer.save()
-           (real orbax checkpoint, main-process gated) into a per-process
-           log dir, so the test can assert non-main processes wrote NOTHING.
+           (real checkpoint, written by process 0, barrier on all) into a
+           per-process log dir, so the test can assert non-main processes
+           wrote NOTHING.
   phase B: a FRESH Trainer on every process pointed at process-0's log dir
-           restores the checkpoint (orbax restore + replicate_state), runs 3
+           restores the checkpoint (.npz restore + replicate_state), runs 3
            more steps, and dumps its local view of the params.
 
 The test asserts: per-process write gating, restored step == saved step,
@@ -92,7 +93,7 @@ tr = Trainer(
     mesh=mesh, main_process=is_main_process(), save_secs=0.0,
 )
 tr.run(4, log_every=1)
-tr.save()  # real orbax checkpoint write (main-process gated inside)
+tr.save()  # real checkpoint write (process 0 writes, all meet at a barrier)
 multihost_utils.sync_global_devices("phase_a_saved")
 
 if idx == 0:
@@ -108,7 +109,7 @@ tr2 = Trainer(
     cfg, model, step, (images, poses), log_dir=out_dir / "log_0",
     mesh=mesh, main_process=is_main_process(), save_secs=0.0,
 )
-restored = tr2.restore()  # orbax restore + replicate_state over the mesh
+restored = tr2.restore()  # .npz restore + replicate_state over the mesh
 assert restored == 4, restored
 assert tr2.device_step() == 4
 

@@ -12,7 +12,7 @@ import bench
 
 
 def test_bench_setup_and_step_runs():
-    step, state, images, poses, n_rand = bench.make_bench_setup(n_rand=64, fused=False)
+    step, state, images, poses, n_rand = bench.make_bench_setup(n_rand=64)
     assert n_rand == 64
     key = jax.random.PRNGKey(0)
     state, aux = step(state, images, poses, key)

@@ -1,6 +1,6 @@
 """CP low-rank grid encoding (encoding/cp_grid.py): hat-matrix interpolation
 correctness vs a direct numpy gather implementation, gradient flow, and
-end-to-end training (the TPU-native counterpart of BASELINE config 5)."""
+end-to-end training (the CP-grid counterpart of BASELINE config 5)."""
 
 import dataclasses
 

@@ -132,7 +132,7 @@ def test_multiprocess_real_trainer(tmp_path, n_processes):
     jax.distributed.initialize over a localhost coordinator (CPU backend,
     gloo collectives, 8//N virtual devices each -> one 8-device global
     mesh). Each worker runs Trainer.run (4 sharded steps), Trainer.save
-    (real orbax write, main-process gated), then a FRESH Trainer on every
+    (real checkpoint write, process 0 only), then a FRESH Trainer on every
     process restores process-0's checkpoint and continues 3 more steps.
     In-worker asserts cover write gating and restored-step correctness;
     here we assert bitwise-identical post-resume params across processes."""

@@ -9,10 +9,6 @@ include_input, 64 coarse + 128 importance samples
   numpy transcription <-> XLA path      (deterministic hierarchical eval,
                                          outputs; coarse train-loss grads
                                          by finite differences)
-  XLA path <-> fused-train kernel       (same-key train step: losses AND
-                                         the full parameter-gradient tree;
-                                         kernel runs the Pallas interpreter
-                                         off-TPU)
 """
 
 import dataclasses
@@ -108,59 +104,12 @@ def test_full_scale_eval_outputs_match_numpy():
     np.testing.assert_allclose(np.asarray(out["rgb_fine"]), rgb_f, rtol=2e-4, atol=5e-5)
 
 
-def test_full_scale_fused_train_matches_xla_train():
-    """XLA train path <-> fused-train kernel at the full configuration:
-    same key => same importance draws => identical programs up to kernel
-    arithmetic. Gates the losses AND every parameter gradient leaf."""
-    cfg = _full_cfg().replace(use_fused_kernel=True, use_fused_train=True)
-    cfg_xla = cfg.replace(use_fused_kernel=False, use_fused_train=False)
-    model_fused = create_nerf(cfg)
-    model_xla = create_nerf(cfg_xla)
-    assert model_fused.supports_fused_train
-
-    params = model_fused.init(jax.random.PRNGKey(0))
-    rays_o, rays_d = _rays(B=4)
-    target = jnp.asarray(np.random.default_rng(5).uniform(size=(4, 3)), jnp.float32)
-    key = jax.random.PRNGKey(11)
-
-    def loss_fused(p):
-        return nerf_loss_fn(model_fused, p, rays_o, rays_d, target, key, fused_train=True)
-
-    def loss_xla(p):
-        return nerf_loss_fn(model_xla, p, rays_o, rays_d, target, key, fused_train=False)
-
-    (lf, auxf), gf = jax.value_and_grad(loss_fused, has_aux=True)(params)
-    (lx, auxx), gx = jax.value_and_grad(loss_xla, has_aux=True)(params)
-
-    np.testing.assert_allclose(float(lf), float(lx), rtol=5e-5)
-    np.testing.assert_allclose(
-        float(auxf["loss_coarse"]), float(auxx["loss_coarse"]), rtol=5e-5
-    )
-    np.testing.assert_allclose(
-        float(auxf["loss_fine"]), float(auxx["loss_fine"]), rtol=5e-5
-    )
-
-    flat_f = jax.tree_util.tree_leaves_with_path(gf)
-    flat_x = dict(jax.tree_util.tree_leaves_with_path(gx))
-    checked = 0
-    for path, leaf_f in flat_f:
-        leaf_x = flat_x[path]
-        scale = max(float(jnp.abs(leaf_x).max()), 1e-8)
-        np.testing.assert_allclose(
-            np.asarray(leaf_f), np.asarray(leaf_x),
-            rtol=2e-3, atol=2e-4 * scale,
-            err_msg=f"grad mismatch at {jax.tree_util.keystr(path)}",
-        )
-        checked += 1
-    assert checked >= 20  # 2 levels x (8 pos layers + 4 heads) x w/b
-
-
 def test_full_scale_coarse_grads_match_numpy_fd():
-    """numpy <-> fused kernel gradients at full scale (coarse-only so the
+    """numpy <-> XLA train-path gradients at full scale (coarse-only so the
     pipeline is deterministic): finite differences of the numpy
-    transcription vs the kernel's analytic grads, spot-checked across
-    layers (first, skip, last, heads)."""
-    cfg = _full_cfg(n_importance=0).replace(use_fused_kernel=True, use_fused_train=True)
+    transcription vs the analytic grads, spot-checked across layers (first,
+    skip, last, heads)."""
+    cfg = _full_cfg(n_importance=0)
     model = create_nerf(cfg)
     params = model.init(jax.random.PRNGKey(0))
     rays_o, rays_d = _rays(B=3)
@@ -168,7 +117,7 @@ def test_full_scale_coarse_grads_match_numpy_fd():
     key = jax.random.PRNGKey(7)
 
     def loss_fn(p):
-        return nerf_loss_fn(model, p, rays_o, rays_d, target, key, fused_train=True)[0]
+        return nerf_loss_fn(model, p, rays_o, rays_d, target, key)[0]
 
     g = jax.grad(loss_fn)(params)
 

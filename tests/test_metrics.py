@@ -42,7 +42,7 @@ def test_ssim_grayscale_input():
 
 
 def test_ssim_never_exceeds_one():
-    """SSIM <= 1 for ANY inputs — a bf16-precision conv (the TPU default)
+    """SSIM <= 1 for ANY inputs — a reduced-precision conv (bf16 or TF32)
     violated this on real renders (measured 1.62) until the conv precision
     was pinned to HIGHEST."""
     rng = np.random.default_rng(3)

@@ -86,37 +86,6 @@ def test_sharded_matches_single_device():
     np.testing.assert_allclose(w1, w2, rtol=1e-4, atol=1e-6)
 
 
-def test_sharded_fused_kernel_matches_single_device():
-    """The fused Pallas path (use_fused_kernel + fused-train) runs
-    device-locally under shard_map and still matches the single-device step:
-    the shard-invariant RNG (models/factory._shard_rand) makes every random
-    draw identical to the unsharded program."""
-    cfg = _tiny_cfg(n_rand=128).replace(use_fused_kernel=True)
-    model = create_nerf(cfg)
-    assert model.supports_fused_train
-    ds = make_synthetic_scene(n_train=2, n_val=1, n_test=1, resolution=16)
-    mesh = make_mesh()
-    images = jnp.asarray(ds.images[ds.i_train])
-    poses = jnp.asarray(ds.poses[ds.i_train, :3, :4])
-    key = jax.random.PRNGKey(3)
-
-    single = make_nerf_train_step(model, ds.H, ds.W, ds.focal)
-    s1 = create_train_state(model.init(jax.random.PRNGKey(0)), cfg.train)
-    s1, aux1 = single(s1, images, poses, key)
-
-    sharded = make_sharded_nerf_train_step(model, ds.H, ds.W, ds.focal, mesh)
-    s2 = replicate_state(
-        create_train_state(model.init(jax.random.PRNGKey(0)), cfg.train), mesh
-    )
-    s2, aux2 = sharded(s2, images, poses, key)
-
-    np.testing.assert_allclose(float(aux1["loss"]), float(aux2["loss"]), rtol=1e-4)
-    for a, b in zip(
-        jax.tree_util.tree_leaves(s1.params), jax.tree_util.tree_leaves(s2.params)
-    ):
-        np.testing.assert_allclose(a, b, rtol=5e-3, atol=1e-4)
-
-
 def test_weak_scaling_batch():
     cfg = _tiny_cfg()
     model = create_nerf(cfg)

@@ -5,7 +5,8 @@ import urllib.request
 
 import numpy as np
 
-from nerf_meets_mlx_tpu.tools.viewer import LiveViewer, _encode_png
+from nerf_meets_mlx_tpu.tools.viewer import LiveViewer
+from nerf_meets_mlx_tpu.utils.video import encode_png
 
 
 def _get(url):
@@ -18,7 +19,7 @@ def test_png_encoder_roundtrip():
     import io
 
     img = np.random.default_rng(0).uniform(size=(16, 24, 3)).astype(np.float32)
-    data = _encode_png(img)
+    data = encode_png(img)
     decoded = imageio.imread(io.BytesIO(data)).astype(np.float32) / 255.0
     assert decoded.shape == (16, 24, 3)
     assert np.abs(decoded - img).max() < 1 / 255 + 1e-6

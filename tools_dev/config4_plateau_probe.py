@@ -1,7 +1,7 @@
 """Diagnose the config-4 plateau (VERDICT r4 #6): why does the 800^2 hard
 scene flatline at ~31.8 dB from 60k to 200k iters?
 
-Part 1 (this script, TPU eval only): render GT-vs-pred ERROR MAPS from the
+Part 1 (this script, eval only): render GT-vs-pred ERROR MAPS from the
 200k checkpoint of the durable chain (.runs/config4_long/run) and measure
 where the residual error lives. Edge-concentration statistic: fraction of
 total squared error inside the GT's high-gradient band (top-decile Sobel
@@ -86,7 +86,7 @@ def error_maps(step: int = 200_000, n_views: int = 3):
     from nerf_meets_mlx_tpu.ops.metrics import psnr as psnr_fn
     from nerf_meets_mlx_tpu.rendering import render_image
 
-    cfg = _cfg().replace(use_fused_kernel=jax.default_backend() == "tpu")
+    cfg = _cfg()
     model = create_nerf(cfg)
     template = create_train_state(
         model.init(jax.random.PRNGKey(0)), cfg.train

@@ -1,6 +1,6 @@
 """Re-measure every README quality row on the HARD procedural scene
 (datasets/synthetic.py scene="hard") — VERDICT r2: the Gaussian-blob PSNRs
-overstate every preset. Runs sequentially on the one TPU; writes one JSON
+overstate every preset. Runs sequentially on one device; writes one JSON
 line per run to /tmp/hard_battery/results.jsonl.
 
 Usage: python tools_dev/hard_scene_battery.py [--quick]

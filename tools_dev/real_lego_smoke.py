@@ -11,7 +11,7 @@ chain is one command:
     python tools_dev/config4_long_run.py --data-dir /path/to/nerf_synthetic/lego
 
 and this smoke test is the proof the plumbing works before burning a day
-of TPU time. (The reference's loader this mirrors:
+of device time. (The reference's loader this mirrors:
 /root/reference/mlx_nerf/dataset/dataloader.py:20-92.)
 
 Usage: python tools_dev/real_lego_smoke.py [--res 64] [--iters 10]
